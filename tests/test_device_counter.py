@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from bfc_tpu.models import counter as C
-from bfc_tpu.models import refmodel as M
-from bfc_tpu.opts import Opts
+from bfc_jax.models import counter as C
+from bfc_jax.models import refmodel as M
+from bfc_jax.opts import Opts
 
 from . import datagen
 
@@ -79,11 +79,11 @@ def test_single_device_lsm_spill_byte_exact(tmp_path, monkeypatch):
     """Force the single-device async LSM spill (worker thread + host
     merge tree) every couple of batches; output must stay byte-identical
     to the reference."""
-    from bfc_tpu.models import device_pipeline as DP
+    from bfc_jax.models import device_pipeline as DP
 
     from . import datagen, oracle
 
-    monkeypatch.setenv("BFC_TPU_MAX_MERGE_CAP", str(1 << 15))
+    monkeypatch.setenv("BFC_MAX_MERGE_CAP", str(1 << 15))
     fq = datagen.standard_dataset(
         str(tmp_path), genome_len=6000, n_reads=1600, name="sp.fq"
     )
@@ -101,8 +101,8 @@ def test_packed_pull_matches_unpacked():
     payload threshold; small counts here stay exact)."""
     import numpy as np
 
-    from bfc_tpu.models.counter import AggBuilder
-    from bfc_tpu.ops import kmer as kops
+    from bfc_jax.models.counter import AggBuilder
+    from bfc_jax.ops import kmer as kops
 
     opt = _opts(17, 22)
     b = AggBuilder(opt)
@@ -121,7 +121,7 @@ def test_packed_pull_matches_unpacked():
         )
     # ret is derivable here: dropped from the merge chain (None)
     assert got.ret is None
-    from bfc_tpu.ops.spectrum_dense import derive_ret_np
+    from bfc_jax.ops.spectrum_dense import derive_ret_np
 
     np.testing.assert_array_equal(
         want.ret, derive_ret_np(got.shard, got.keybody, b.k, b.l_pre)
@@ -131,7 +131,7 @@ def test_packed_pull_matches_unpacked():
 def test_lsm_eager_spill_order_and_content():
     """Eager spill of merge-dead levels must preserve oldest-first span
     order: the tree's final aggregate equals the no-eager tree's."""
-    from bfc_tpu.ops.lsm import LsmTree
+    from bfc_jax.ops.lsm import LsmTree
 
     def mk(eager):
         # runs are (sorted list of (key, arrival), count)
@@ -169,8 +169,8 @@ def test_pull_run_carries_high_arrival_plane():
     provably zero (stream < 2^32 bases); past that it must transfer it."""
     import numpy as np
 
-    from bfc_tpu.models.counter import AggBuilder
-    from bfc_tpu.ops import kmer as kops
+    from bfc_jax.models.counter import AggBuilder
+    from bfc_jax.ops import kmer as kops
 
     opt = Opts()
     opt.k = 17

@@ -2,8 +2,8 @@
 
 import pytest
 
-from bfc_tpu.models import device_pipeline as DP
-from bfc_tpu.opts import Opts
+from bfc_jax.models import device_pipeline as DP
+from bfc_jax.opts import Opts
 
 from . import datagen, oracle
 

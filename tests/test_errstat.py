@@ -27,7 +27,7 @@ def run_errstat(tmp_path, *files):
         p.write_text(content)
         paths.append(str(p))
     r = subprocess.run(
-        [sys.executable, "-m", "bfc_tpu.tools.errstat"] + paths,
+        [sys.executable, "-m", "bfc_jax.tools.errstat"] + paths,
         capture_output=True, text=True, timeout=120,
     )
     assert r.returncode == 0, r.stderr

@@ -1,16 +1,15 @@
 """Fallback paths: long reads (>504 bp) and forced device-capacity
 overflow must stay byte-exact (they re-run on the scalar model).
 
-These paths are the rot-prone ones: nothing else exercises them
-(VERDICT round 1, weak #4)."""
+These paths are the rot-prone ones: nothing else exercises them."""
 
 import numpy as np
 import pytest
 
-from bfc_tpu.models import corrector as DC
-from bfc_tpu.models import counter as C
-from bfc_tpu.models import device_pipeline as DP
-from bfc_tpu.opts import Opts
+from bfc_jax.models import corrector as DC
+from bfc_jax.models import counter as C
+from bfc_jax.models import device_pipeline as DP
+from bfc_jax.opts import Opts
 
 from . import datagen, oracle
 
@@ -102,7 +101,7 @@ def test_greedy_pool_overflow_exact():
     batch = reads[:2048]
     got = corr.correct_batch([r[0] for r in batch], [r[1] for r in batch])
     # oracle: the exact scalar model per read
-    from bfc_tpu.models import refmodel as M
+    from bfc_jax.models import refmodel as M
 
     ch = corr._fallback_table()
     for (st, s2, q2), (s_in, q_in) in zip(got, batch):

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from bfc_tpu.io import fast_reader as FR
-from bfc_tpu.io import fastq as slow_io
-from bfc_tpu.native.build import get_lib
+from bfc_jax.io import fast_reader as FR
+from bfc_jax.io import fastq as slow_io
+from bfc_jax.native.build import get_lib
 
 from . import datagen
 
@@ -71,7 +71,7 @@ def test_multiline_fallback(tmp_path):
 def test_split_by_bases(tmp_path):
     """-L chunking: each piece stops once cumulative bases reach the bound
     (bseq.c:52-76 semantics: may exceed by one read)."""
-    from bfc_tpu.io import fast_reader as FR
+    from bfc_jax.io import fast_reader as FR
 
     path = f"{tmp_path}/r.fq"
     with open(path, "w") as f:

@@ -12,9 +12,9 @@ import dataclasses
 
 import numpy as np
 
-from bfc_tpu.models import corrector as DC
-from bfc_tpu.models import counter as C
-from bfc_tpu.opts import Opts
+from bfc_jax.models import corrector as DC
+from bfc_jax.models import counter as C
+from bfc_jax.opts import Opts
 
 from . import datagen
 

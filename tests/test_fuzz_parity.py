@@ -4,8 +4,8 @@ import random
 
 import pytest
 
-from bfc_tpu.models import device_pipeline as DP
-from bfc_tpu.opts import Opts
+from bfc_jax.models import device_pipeline as DP
+from bfc_jax.opts import Opts
 
 from . import datagen, oracle
 

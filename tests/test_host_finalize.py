@@ -3,10 +3,10 @@
 import numpy as np
 import jax.numpy as jnp
 
-from bfc_tpu.models import counter as C
-from bfc_tpu.ops import spectrum as spec
-from bfc_tpu.ops import spectrum_host as sph
-from bfc_tpu.opts import Opts
+from bfc_jax.models import counter as C
+from bfc_jax.ops import spectrum as spec
+from bfc_jax.ops import spectrum_host as sph
+from bfc_jax.opts import Opts
 
 from . import datagen
 
@@ -56,7 +56,7 @@ def test_incremental_sketch_vs_sort_adjudicate(monkeypatch):
     """The span-incremental BloomMinSketch verdict must equal the
     one-shot sort adjudicate bit for bit, including under forced LSM
     spills (many partial-min folds) and u32-overflow fallback."""
-    monkeypatch.setenv("BFC_TPU_MAX_MERGE_CAP", "2048")  # force spills
+    monkeypatch.setenv("BFC_MAX_MERGE_CAP", "2048")  # force spills
     genome = datagen.make_genome(8000, seed=91)
     reads = datagen.simulate_reads(genome, 2500, read_len=100,
                                    err_rate=0.02, seed=92)
@@ -71,7 +71,7 @@ def test_incremental_sketch_vs_sort_adjudicate(monkeypatch):
     for a, b in zip(sk_out, sort_out):
         np.testing.assert_array_equal(a, b)
     # disabled by knob: no sketch is attached at all
-    monkeypatch.setenv("BFC_TPU_INC_ADJ", "0")
+    monkeypatch.setenv("BFC_INC_ADJ", "0")
     agg0, _ = C.count_stream_aggregate(iter(reads), opt, batch_reads=256)
     assert agg0.bloom_min is None
     off_out = sph.finalize_host(agg0, opt.bf_shift, opt.n_hashes)
@@ -83,7 +83,7 @@ def test_replay_adjudicate_matches_sort():
     """The C bit-array replay (human-scale adjudicate) == the sort."""
     import numpy as np
 
-    from bfc_tpu.ops import spectrum_host as sph
+    from bfc_jax.ops import spectrum_host as sph
 
     rng = np.random.default_rng(99)
     for bf_shift, H, C in ((18, 4, 120000), (14, 3, 40000)):

@@ -8,7 +8,7 @@ re-encoding.
 
 import random
 
-from bfc_tpu.models import refmodel as M
+from bfc_jax.models import refmodel as M
 
 
 def encode_kmer(k, s):

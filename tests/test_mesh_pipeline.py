@@ -3,8 +3,8 @@
 import jax
 import pytest
 
-from bfc_tpu.models import device_pipeline as DP
-from bfc_tpu.opts import Opts
+from bfc_jax.models import device_pipeline as DP
+from bfc_jax.opts import Opts
 
 from . import datagen, oracle
 
@@ -29,7 +29,7 @@ def test_mesh_pipeline_lsm_spill(tmp_path, monkeypatch):
     counting binary counter LSM-spills every few batches and finalizes
     from the host tree (the human-scale capacity path)."""
     assert len(jax.devices()) >= 8
-    monkeypatch.setenv("BFC_TPU_MAX_MERGE_CAP", str(1 << 14))
+    monkeypatch.setenv("BFC_MAX_MERGE_CAP", str(1 << 14))
     fq = datagen.standard_dataset(
         str(tmp_path), genome_len=8000, n_reads=2400, name="ms.fq"
     )

@@ -6,8 +6,8 @@ dump/restore interop, FASTA output, and discard mode.
 
 import pytest
 
-from bfc_tpu.models import pipeline as P
-from bfc_tpu.opts import Opts
+from bfc_jax.models import pipeline as P
+from bfc_jax.opts import Opts
 
 from . import datagen, oracle
 

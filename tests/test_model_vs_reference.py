@@ -9,9 +9,9 @@ import subprocess
 
 import pytest
 
-from bfc_tpu.models import pipeline as P
-from bfc_tpu.models import refmodel as M
-from bfc_tpu.opts import Opts
+from bfc_jax.models import pipeline as P
+from bfc_jax.models import refmodel as M
+from bfc_jax.opts import Opts
 
 from . import datagen, oracle
 

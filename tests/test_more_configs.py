@@ -5,8 +5,8 @@ import sys
 
 import pytest
 
-from bfc_tpu.models import device_pipeline as DP
-from bfc_tpu.opts import Opts
+from bfc_jax.models import device_pipeline as DP
+from bfc_jax.opts import Opts
 
 from . import datagen, oracle
 
@@ -40,7 +40,7 @@ def test_stdin_input(dataset):
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = ""
     p = subprocess.run(
-        [sys.executable, "-m", "bfc_tpu", "-k21", "-b24", "-"],
+        [sys.executable, "-m", "bfc_jax", "-k21", "-b24", "-"],
         input=open(dataset, "rb").read(), capture_output=True, env=env,
         timeout=900,
     )

@@ -4,8 +4,8 @@ import random
 
 import numpy as np
 
-from bfc_tpu.models import refmodel as M
-from bfc_tpu.ops import kmer as K
+from bfc_jax.models import refmodel as M
+from bfc_jax.ops import kmer as K
 
 
 def scalar_stream_arrays(seq, qual, k, q, l_pre, L):

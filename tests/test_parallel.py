@@ -5,11 +5,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from bfc_tpu.models import refmodel as M
-from bfc_tpu.ops import kmer as kops
-from bfc_tpu.ops import spectrum as spec
-from bfc_tpu.parallel import mesh as pmesh
-from bfc_tpu.opts import Opts
+from bfc_jax.models import refmodel as M
+from bfc_jax.ops import kmer as kops
+from bfc_jax.ops import spectrum as spec
+from bfc_jax.parallel import mesh as pmesh
+from bfc_jax.opts import Opts
 
 from . import datagen
 

@@ -10,7 +10,7 @@ path) on any input.
 import numpy as np
 import pytest
 
-from bfc_tpu.ops import spectrum_host as sph
+from bfc_jax.ops import spectrum_host as sph
 
 
 @pytest.mark.parametrize("seed", [1, 2])

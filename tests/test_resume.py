@@ -14,10 +14,10 @@ import os
 import numpy as np
 import pytest
 
-from bfc_tpu.models import corrector as DC
-from bfc_tpu.models import counter as C
-from bfc_tpu.models import refmodel as M
-from bfc_tpu.opts import Opts
+from bfc_jax.models import corrector as DC
+from bfc_jax.models import counter as C
+from bfc_jax.models import refmodel as M
+from bfc_jax.opts import Opts
 
 from . import datagen
 
@@ -46,7 +46,7 @@ def _window_vs_model(opt, ch, ds, reads, mode, env):
         seqs = [r[0] for r in reads]
         quals = [r[1] for r in reads]
         n = len(reads)
-        from bfc_tpu.ops import kmer as kops
+        from bfc_jax.ops import kmer as kops
 
         bases0, _, lens0 = kops.encode_batch(seqs, None, opt.q)
         rawq0 = np.zeros(bases0.shape, np.uint8)
@@ -81,8 +81,8 @@ def test_resume_heavy_traffic(setup):
     that get iteration-capped again on resume (scalar fallback)."""
     opt, ch, ds, reads, mode = setup
     _window_vs_model(opt, ch, ds, reads, mode, {
-        "BFC_TPU_SOFT_ITERS": "8",
-        "BFC_TPU_RESUME_POOL": "64",
+        "BFC_SOFT_ITERS": "8",
+        "BFC_RESUME_POOL": "64",
     })
 
 
@@ -91,17 +91,17 @@ def test_resume_soft_stack_overflow(setup):
     exercises the resume -> full-cap re-batch route."""
     opt, ch, ds, reads, mode = setup
     _window_vs_model(opt, ch, ds, reads, mode, {
-        "BFC_TPU_SOFT_ITERS": "16",
-        "BFC_TPU_SOFT_STACK": "48",
-        "BFC_TPU_RESUME_POOL": "64",
+        "BFC_SOFT_ITERS": "16",
+        "BFC_SOFT_STACK": "48",
+        "BFC_RESUME_POOL": "64",
     })
 
 
 def test_resume_off_matches(setup):
-    """BFC_TPU_RESUME=0 (the round-4 re-batch path) stays byte-exact."""
+    """BFC_RESUME=0 (the full-cap re-batch path) stays byte-exact."""
     opt, ch, ds, reads, mode = setup
-    old = os.environ.get("BFC_TPU_RESUME")
-    os.environ["BFC_TPU_RESUME"] = "0"
+    old = os.environ.get("BFC_RESUME")
+    os.environ["BFC_RESUME"] = "0"
     try:
         corr = DC.Corrector(opt, ds)
         assert not corr._resume
@@ -114,6 +114,6 @@ def test_resume_off_matches(setup):
             assert s2 == ms2 and q2 == mq2
     finally:
         if old is None:
-            os.environ.pop("BFC_TPU_RESUME", None)
+            os.environ.pop("BFC_RESUME", None)
         else:
-            os.environ["BFC_TPU_RESUME"] = old
+            os.environ["BFC_RESUME"] = old

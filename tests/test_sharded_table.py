@@ -13,7 +13,7 @@ import jax.numpy as jnp
 from jax import shard_map
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from bfc_tpu.ops import spectrum as spec
+from bfc_jax.ops import spectrum as spec
 
 from . import datagen, oracle
 
@@ -34,8 +34,8 @@ def test_sharded_lookup_matches_local():
     The sharded layout is per-device independent sub-tables (prefix
     routing); the local table is the flat global cuckoo.  Both must
     return identical payloads - placement is layout-only."""
-    from bfc_tpu.parallel import mesh as pmesh
-    from bfc_tpu.ops import spectrum_host as sph
+    from bfc_jax.parallel import mesh as pmesh
+    from bfc_jax.ops import spectrum_host as sph
 
     rng = np.random.default_rng(42)
     c_bits, l_pre, kb_bits = 14, 8, 20
@@ -85,8 +85,8 @@ def test_sharded_lookup_matches_local():
 def test_device_build_matches_host_lookups():
     """spectrum.cuckoo_build_local (device build) produces sub-tables
     whose lookups agree with the host-built sharded layout."""
-    from bfc_tpu.parallel import mesh as pmesh
-    from bfc_tpu.ops import spectrum_host as sph
+    from bfc_jax.parallel import mesh as pmesh
+    from bfc_jax.ops import spectrum_host as sph
 
     rng = np.random.default_rng(7)
     c_bits, l_pre, kb_bits = 13, 8, 20
@@ -156,8 +156,8 @@ def test_forced_skew_overflows_then_retries():
     """All queries aimed at ONE prefix range must overflow the routing
     bucket at slack 1 and succeed at a larger slack - the driver's
     doubling retry path, with no scalar fallback."""
-    from bfc_tpu.parallel import mesh as pmesh
-    from bfc_tpu.ops import spectrum_host as sph
+    from bfc_jax.parallel import mesh as pmesh
+    from bfc_jax.ops import spectrum_host as sph
 
     rng = np.random.default_rng(5)
     c_bits, l_pre, kb_bits = 13, 8, 20
@@ -200,10 +200,10 @@ def test_corrector_retries_routing_overflow():
     every lookup routes to one prefix owner) must overflow the routing
     buckets and be retried with doubled slack on DEVICE - no read may
     take the scalar-fallback path."""
-    from bfc_tpu.models import corrector as DC
-    from bfc_tpu.models import counter as C
-    from bfc_tpu.opts import Opts
-    from bfc_tpu.parallel import mesh as pmesh
+    from bfc_jax.models import corrector as DC
+    from bfc_jax.models import counter as C
+    from bfc_jax.opts import Opts
+    from bfc_jax.parallel import mesh as pmesh
 
     from . import datagen
 
@@ -232,8 +232,8 @@ def test_corrector_retries_routing_overflow():
 @pytest.mark.slow
 def test_sharded_pipeline_matches_reference(tmp_path):
     """Full pipeline with the table SHARDED (not replicated): byte parity."""
-    from bfc_tpu.models import device_pipeline as DP
-    from bfc_tpu.opts import Opts
+    from bfc_jax.models import device_pipeline as DP
+    from bfc_jax.opts import Opts
 
     assert len(jax.devices()) >= 8
     fq = datagen.standard_dataset(
